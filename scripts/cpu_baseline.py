@@ -30,7 +30,7 @@ jax.config.update("jax_platforms", "cpu")
 
 from bench import (CACHE_ROOT, QUERY_LEN, build_skewed_db, ensure_db,
                    make_queries)
-from kaamer_tpu import codec
+from kaamer_jax import codec
 
 ROUND = int(sys.argv[1]) if len(sys.argv) > 1 else 5
 THREADS = int(sys.argv[2]) if len(sys.argv) > 2 else os.cpu_count() or 2

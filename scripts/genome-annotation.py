@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Turn kaamer-tpu nucleotide-search TSV output into a GFF3 genome annotation.
+"""Turn kaamer-jax nucleotide-search TSV output into a GFF3 genome annotation.
 
 Capability match for the reference scripts/genome-annotation.py: group hits
 by query location, build a consensus product/gene name per CDS (majority

@@ -23,7 +23,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
 
-from kaamer_tpu.parallel.dist import init_distributed, global_mesh
+from kaamer_jax.parallel.dist import init_distributed, global_mesh
 
 init_distributed()  # env-var path: KAAMER_COORDINATOR / NUM_PROCESSES / ID
 assert jax.process_count() == 2, jax.process_count()
@@ -40,7 +40,7 @@ assert row_procs[0] != row_procs[1] and all(len(r) == 1 for r in row_procs), \
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from __graft_entry__ import _query_arrays, _synthetic_index
-from kaamer_tpu.parallel.mesh import make_sharded_search, shard_index_arrays
+from kaamer_jax.parallel.mesh import make_sharded_search, shard_index_arrays
 
 ht, set_offsets, postings, seqs = _synthetic_index()
 sharded = shard_index_arrays(ht.table, set_offsets, postings, n_shards=4)

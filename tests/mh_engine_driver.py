@@ -25,7 +25,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
 
-from kaamer_tpu.parallel.dist import (ShardedSearchEngine, global_mesh,
+from kaamer_jax.parallel.dist import (ShardedSearchEngine, global_mesh,
                                       init_distributed)
 
 init_distributed()
@@ -33,9 +33,9 @@ assert jax.process_count() == 2, jax.process_count()
 assert jax.local_device_count() == 4 and jax.device_count() == 8
 
 mesh = global_mesh()  # dp=2 spans processes, shard=4 local
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.options import PROTEIN, SearchOptions
-from kaamer_tpu.search.pipeline import run_search
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.search.options import PROTEIN, SearchOptions
+from kaamer_jax.search.pipeline import run_search
 
 art = load_db(sys.argv[2])
 engine = ShardedSearchEngine(art, mesh=mesh)

@@ -6,8 +6,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from kaamer_tpu.codec import encode_kmer
-from kaamer_tpu.records import Protein
+from kaamer_jax.codec import encode_kmer
+from kaamer_jax.records import Protein
 
 KMER_SIZE = 7
 

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from kaamer_tpu import codec
+from kaamer_jax import codec
 
 
 def test_pack_layout_known_value():
@@ -74,7 +74,7 @@ def test_pack_codes3_roundtrip():
     """Wire packing (3 residues/uint16) roundtrips through the device unpack
     for every width mod 3, including -1 padding and unknown chars."""
     import numpy as np
-    from kaamer_tpu import codec
+    from kaamer_jax import codec
 
     rng = np.random.default_rng(5)
     for width in (1, 2, 3, 7, 62, 63, 64, 262):
@@ -92,7 +92,7 @@ def test_pack_codes7_roundtrip():
     the device unpack for every width mod 7, including the extreme words
     (all code 21 -> 22^7 - 1, near the uint32 limit)."""
     import numpy as np
-    from kaamer_tpu import codec
+    from kaamer_jax import codec
 
     rng = np.random.default_rng(6)
     for width in (1, 6, 7, 8, 62, 63, 64, 262):
@@ -109,7 +109,7 @@ def test_pack_codes7_roundtrip():
 
 def test_pad_codes_batch_matches_scalar():
     import numpy as np
-    from kaamer_tpu import codec
+    from kaamer_jax import codec
 
     seqs = ["ACDEFGH", "", "MKTAYIAKQRQISFVKSHFSRQ", "XX*1aC", "Y" * 300]
     width = 40

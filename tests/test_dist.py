@@ -4,12 +4,12 @@ byte-identical output to the single-chip engine."""
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.parallel.dist import ShardedSearchEngine, global_mesh
-from kaamer_tpu.search.engine import SearchEngine
-from kaamer_tpu.search.options import PROTEIN, SearchOptions
-from kaamer_tpu.search.pipeline import run_search
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.parallel.dist import ShardedSearchEngine, global_mesh
+from kaamer_jax.search.engine import SearchEngine
+from kaamer_jax.search.options import PROTEIN, SearchOptions
+from kaamer_jax.search.pipeline import run_search
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -115,7 +115,7 @@ def test_sharded_device_position_bitmaps_match_single(db):
 def test_sharded_fastq_pipeline_matches_single(db, tmp_path):
     """Full fastq (translated reads) pipeline through the sharded engine is
     byte-identical to single-chip serving."""
-    from kaamer_tpu.search.options import READS
+    from kaamer_jax.search.options import READS
 
     art, seqs, _ = db
     c = {"A":"gct","C":"tgt","D":"gat","E":"gaa","F":"ttt","G":"ggt","H":"cat",
@@ -282,7 +282,7 @@ def test_shard_built_layout_matches_shard_index(built_shards):
     """Build-time set routing (shard_owner over global set ids) must place
     exactly the postings that load-time shard_index() would: per-shard
     postings and local set offsets are bit-equal."""
-    from kaamer_tpu.parallel.mesh import shard_index
+    from kaamer_jax.parallel.mesh import shard_index
 
     g, s, _, _ = built_shards
     assert s.index_shards == 4
@@ -351,7 +351,7 @@ def test_postings_cap_forces_sharded_build(built_shards, tmp_path,
     """Crossing MAX_POSTINGS: the unsharded index raises the clear error;
     the same data indexes fine sharded (each shard under the cap) and
     serves (the mechanism behind >2^31-postings databases, scaled down)."""
-    from kaamer_tpu.index import build as build_mod
+    from kaamer_jax.index import build as build_mod
 
     g, _, seqs, _ = built_shards
     total = int(np.asarray(g.set_offsets)[-1])
@@ -382,7 +382,7 @@ def test_postings_cap_forces_sharded_build(built_shards, tmp_path,
 
 
 def test_encode_kmers_batch_matches_scalar():
-    from kaamer_tpu import codec
+    from kaamer_jax import codec
 
     rng = np.random.default_rng(3)
     codes = rng.integers(-1, codec.N_AA, size=(5, 30)).astype(np.int32)

@@ -3,9 +3,9 @@ import os
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.engine import SearchEngine
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.search.engine import SearchEngine
 from oracle import OracleDB
 
 AA = "ACDEFGHIKLMNPQRSTUVWY"
@@ -44,7 +44,7 @@ def synth_db(tmp_path_factory):
     build_db(dbdir, fasta, "fasta")
 
     art = load_db(dbdir)
-    from kaamer_tpu.records import Protein
+    from kaamer_jax.records import Protein
 
     entries = [
         (int(art.protein_ids[i]), art.protein(i)) for i in range(art.num_proteins)
@@ -142,7 +142,7 @@ def test_member_bitmap_binary_search_matches_host():
     """ops.count.member_bitmap (the large-cap binary-search path) against
     the host member_np on random CSR slices."""
     import jax.numpy as jnp
-    from kaamer_tpu.ops.count import member_bitmap, member_np
+    from kaamer_jax.ops.count import member_bitmap, member_np
 
     rng = np.random.default_rng(17)
     n_sets, B, K, L = 50, 6, 8, 16
@@ -217,7 +217,7 @@ def test_grouped_caps_track_totals(heavy_db, monkeypatch):
     and both resolve exactly (no single-cap batch tax).  At the real
     dispatch cost, 8 tiny queries rightly coalesce into ONE chunk (one
     dispatch beats two at trivial expansion volumes) -- also asserted."""
-    from kaamer_tpu.search import engine as engine_mod
+    from kaamer_jax.search import engine as engine_mod
 
     art, oracle, seqs, shared = heavy_db
     engine = SearchEngine(art, hot=False)
@@ -311,7 +311,7 @@ def test_overflow_rerun_positions_match_host(heavy_db):
 
 def test_overflow_beyond_cap_max_host_fallback(heavy_db, monkeypatch):
     """totals > CAP_MAX falls back to the exact host bincount."""
-    import kaamer_tpu.search.engine as eng_mod
+    import kaamer_jax.search.engine as eng_mod
 
     art, oracle, seqs, shared = heavy_db
     engine = SearchEngine(art)
@@ -440,7 +440,7 @@ def skew_db(tmp_path_factory):
     _write_fasta(fasta, seqs)
     build_db(dbdir, fasta, "fasta")
     art = load_db(dbdir)
-    from kaamer_tpu.records import Protein
+    from kaamer_jax.records import Protein
 
     entries = [
         (int(art.protein_ids[i]), art.protein(i)) for i in range(art.num_proteins)
@@ -474,7 +474,7 @@ def test_skewed_counts_and_positions_match_oracle(skew_db):
 
 
 def test_skewed_sharded_matches_single(skew_db):
-    from kaamer_tpu.parallel.dist import ShardedSearchEngine, global_mesh
+    from kaamer_jax.parallel.dist import ShardedSearchEngine, global_mesh
 
     art, _, seqs, domains = skew_db
     queries = [seqs[3], domains[0] + domains[1], seqs[11][:60]]
@@ -491,7 +491,7 @@ def test_expansion_budget_escalates_outliers(heavy_db, monkeypatch):
     """Queries above a group's expansion budget (MAX_EXPANSION_ELEMS / G)
     escalate into RERUN_B-wide chunks at the pow2 cap they need; normal
     groups stay within budget and results stay exact."""
-    import kaamer_tpu.search.engine as eng_mod
+    import kaamer_jax.search.engine as eng_mod
 
     art, oracle, seqs, shared = heavy_db
     # hot=False: with the dense hot path on, the heavy queries' COLD totals

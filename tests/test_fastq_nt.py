@@ -5,11 +5,11 @@ import json
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.engine import SearchEngine
-from kaamer_tpu.search.options import NUCLEOTIDE, READS, SearchOptions
-from kaamer_tpu.search.pipeline import run_search
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.search.engine import SearchEngine
+from kaamer_jax.search.options import NUCLEOTIDE, READS, SearchOptions
+from kaamer_jax.search.pipeline import run_search
 from tests_codon_helper import encode_protein
 
 AA = "ACDEFGHIKMNPQRSTVWY"  # no L to keep reverse-translation start-free
@@ -103,7 +103,7 @@ def test_lean_tsv_path_byte_identical(db, tmp_path):
     produce byte-identical output to the generic QueryResult path across
     both strands, multi-ORF reads, start-codon refinement (reads with
     internal Met/alt starts) and hit filtering."""
-    from kaamer_tpu.search import pipeline
+    from kaamer_jax.search import pipeline
 
     engine, seqs = db
     rng = np.random.default_rng(77)
@@ -145,7 +145,7 @@ def test_lean_tsv_path_is_engaged_by_default(db, tmp_path, monkeypatch):
     """The high-volume serving shape (tsv, no positions/annotations/align)
     must actually route through the lean path -- guard against an option
     plumbing change silently falling back to the generic object path."""
-    from kaamer_tpu.search import pipeline
+    from kaamer_jax.search import pipeline
 
     engine, seqs = db
     fq = tmp_path / "r.fq"

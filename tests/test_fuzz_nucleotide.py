@@ -11,14 +11,14 @@ with device-computed position bitmaps, the MinKMatch top-hit gate
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.io_formats.readers import QueryRecord, QueryLocation
-from kaamer_tpu.search.engine import SearchEngine
-from kaamer_tpu.search.options import NUCLEOTIDE, SearchOptions
-from kaamer_tpu.search.orf import KMER_SIZE, _get_orfs_py, set_best_start_codon
-from kaamer_tpu.search.pipeline import run_search
-from kaamer_tpu.search.results import _f32_pct
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.io_formats.readers import QueryRecord, QueryLocation
+from kaamer_jax.search.engine import SearchEngine
+from kaamer_jax.search.options import NUCLEOTIDE, SearchOptions
+from kaamer_jax.search.orf import KMER_SIZE, _get_orfs_py, set_best_start_codon
+from kaamer_jax.search.pipeline import run_search
+from kaamer_jax.search.results import _f32_pct
 from oracle import OracleDB
 from tests_codon_helper import encode_protein
 
@@ -49,7 +49,7 @@ def nt_db(tmp_path_factory):
 def _random_dna(rng, seqs):
     """DNA carrying 1-2 reverse-translated protein fragments on random
     strands, padded with random bases."""
-    from kaamer_tpu.search.orf import reverse_complement
+    from kaamer_jax.search.orf import reverse_complement
 
     parts = ["".join(rng.choice(list("acgt"), size=int(rng.integers(5, 40))))]
     for _ in range(int(rng.integers(1, 3))):

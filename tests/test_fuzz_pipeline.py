@@ -7,12 +7,12 @@ import json
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.engine import SearchEngine
-from kaamer_tpu.search.options import PROTEIN, SearchOptions
-from kaamer_tpu.search.pipeline import run_search
-from kaamer_tpu.search.results import format_positions
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.search.engine import SearchEngine
+from kaamer_jax.search.options import PROTEIN, SearchOptions
+from kaamer_jax.search.pipeline import run_search
+from kaamer_jax.search.results import format_positions
 from oracle import OracleDB
 
 AA = "ACDEFGHIKLMNPQRSTUVWY"

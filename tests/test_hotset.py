@@ -15,10 +15,10 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))
 from oracle import OracleDB
 
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.ops import hotset
-from kaamer_tpu.search.engine import SearchEngine
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.index.build import build_db
+from kaamer_jax.ops import hotset
+from kaamer_jax.search.engine import SearchEngine
 
 AA = list("ACDEFGHIKLMNPQRSTVWY")
 
@@ -265,6 +265,65 @@ def test_hot_matmul_exact_bf16_split():
         out32 = np.asarray(hotset.hot_matmul(
             jnp.asarray(W_np), jnp.asarray(M_np), max_w=max_w))
         np.testing.assert_array_equal(out32, ref)
+
+
+def _dot_precisions(jaxpr):
+    """precision params of every dot_general in a jaxpr, nested ones too."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            found.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            sub = getattr(v, "jaxpr", v)  # ClosedJaxpr or Jaxpr
+            if hasattr(sub, "eqns"):
+                found += _dot_precisions(sub)
+    return found
+
+
+def _f32_hot_branches():
+    """(hot_weights at L > 256, hot_matmul with an f32 M) as zero-arg
+    callables on integer-valued inputs above TF32's exact range (2^11)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(11)
+    G, L, H, P = 2, 4096, 8, 256
+    hs = np.arange(H, dtype=np.int32) * 100
+    offs = rng.choice(np.concatenate([hs, [7, 9]]), size=(G, L)).astype(
+        np.int32)
+    whot = rng.integers(0, 3, size=(G, L)).astype(np.int32)
+    whot[0, 5], whot[1, 17] = 3001, 2049  # run weights up to L
+    W_ref = np.stack([[whot[g][offs[g] == h].sum() for h in hs]
+                      for g in range(G)]).astype(np.float64)
+
+    W = rng.integers(0, 4097, size=(G, H)).astype(np.float32)
+    W[0, 0], W[1, 1] = 2049.0, 4095.0
+    M = (rng.random((H, P)) < 0.5).astype(np.float32)
+    return {
+        "hot_weights": (lambda: hotset.hot_weights(
+            jnp.asarray(offs), jnp.asarray(whot), jnp.asarray(hs)), W_ref),
+        "hot_matmul": (lambda: hotset.hot_matmul(
+            jnp.asarray(W), jnp.asarray(M), max_w=4096),
+            W.astype(np.float64) @ M.astype(np.float64)),
+    }
+
+
+@pytest.mark.parametrize("name", ["hot_weights", "hot_matmul"])
+def test_f32_hot_contractions_pin_highest(name):
+    """On a GPU, default f32 precision may mean TF32 (exact only up to
+    2^11); the f32 branches of the hot path must ask for HIGHEST."""
+    import jax
+
+    fn, _ = _f32_hot_branches()[name]
+    precs = _dot_precisions(jax.make_jaxpr(fn)().jaxpr)
+    assert precs, "no contraction traced"
+    for p in precs:
+        assert p == (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+
+
+@pytest.mark.parametrize("name", ["hot_weights", "hot_matmul"])
+def test_f32_hot_contractions_exact_above_2048(name):
+    fn, ref = _f32_hot_branches()[name]
+    np.testing.assert_array_equal(np.asarray(fn(), dtype=np.float64), ref)
 
 
 def _tam_oracle(counts_hot, rows, w, k):

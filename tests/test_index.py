@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import dedup_sets
-from kaamer_tpu.index.hashtable import build_table, lookup_np
+from kaamer_jax.index.build import dedup_sets
+from kaamer_jax.index.hashtable import build_table, lookup_np
 
 
 def test_hashtable_roundtrip():

@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.index.backup import backup_db, gc_db, restore_db
-from kaamer_tpu.index.build import build_db, index_db
-from kaamer_tpu.index.merge import merge_dbs
-from kaamer_tpu.search.engine import SearchEngine
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.index.backup import backup_db, gc_db, restore_db
+from kaamer_jax.index.build import build_db, index_db
+from kaamer_jax.index.merge import merge_dbs
+from kaamer_jax.search.engine import SearchEngine
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -99,9 +99,9 @@ def test_backup_restore_shard_built(tmp_path):
     dropped the entire index)."""
     import numpy as np
 
-    from kaamer_tpu.index.backup import backup_db, restore_db
-    from kaamer_tpu.index.build import build_db
-    from kaamer_tpu.index.artifact import load_db
+    from kaamer_jax.index.backup import backup_db, restore_db
+    from kaamer_jax.index.build import build_db
+    from kaamer_jax.index.artifact import load_db
 
     rng = np.random.default_rng(4)
     AA = list("ACDEFGHIKLMNPQRSTVWY")

@@ -60,8 +60,8 @@ def test_two_process_sharded_batch_matches_single_process(tmp_path):
 
     # single-process reference on the parent's own 8 virtual devices
     from __graft_entry__ import _query_arrays, _synthetic_index
-    from kaamer_tpu.parallel.dist import global_mesh
-    from kaamer_tpu.parallel.mesh import (make_sharded_search,
+    from kaamer_jax.parallel.dist import global_mesh
+    from kaamer_jax.parallel.mesh import (make_sharded_search,
                                           shard_index_arrays)
 
     ht, set_offsets, postings, seqs = _synthetic_index()
@@ -94,7 +94,7 @@ def test_two_process_production_engine_streams_identical_bytes(tmp_path):
     to a single-process run of the same engine."""
     import numpy as np
 
-    from kaamer_tpu.index.build import build_db
+    from kaamer_jax.index.build import build_db
 
     # deterministic skewed DB with hot sets: popular domains shared widely
     rng = np.random.default_rng(21)
@@ -149,10 +149,10 @@ def test_two_process_production_engine_streams_identical_bytes(tmp_path):
     assert not fails, fails
 
     # single-process reference stream over the parent's own 8-device mesh
-    from kaamer_tpu.index.artifact import load_db
-    from kaamer_tpu.parallel.dist import ShardedSearchEngine, global_mesh
-    from kaamer_tpu.search.options import PROTEIN, SearchOptions
-    from kaamer_tpu.search.pipeline import run_search
+    from kaamer_jax.index.artifact import load_db
+    from kaamer_jax.parallel.dist import ShardedSearchEngine, global_mesh
+    from kaamer_jax.search.options import PROTEIN, SearchOptions
+    from kaamer_jax.search.pipeline import run_search
 
     engine = ShardedSearchEngine(load_db(dbdir), mesh=global_mesh(4))
     assert engine.hot_starts is not None

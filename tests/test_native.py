@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from kaamer_tpu import codec, native
+from kaamer_jax import codec, native
 
 
 @pytest.fixture(scope="module")
@@ -53,8 +53,8 @@ def test_parse_fasta_bytes(lib_available):
 
 
 def test_build_uses_native_and_matches(lib_available, tmp_path):
-    from kaamer_tpu.index.build import build_db
-    from kaamer_tpu.index.artifact import load_db
+    from kaamer_jax.index.build import build_db
+    from kaamer_jax.index.artifact import load_db
 
     rng = np.random.default_rng(2)
     fa = tmp_path / "in.fasta"
@@ -70,7 +70,7 @@ def test_build_uses_native_and_matches(lib_available, tmp_path):
 def test_pack_queries_matches_python_path():
     """kt_pack_queries must reproduce pad_codes_batch + pack_codes7 exactly,
     including invalid characters, clipping, and empty sequences."""
-    from kaamer_tpu import codec, native
+    from kaamer_jax import codec, native
 
     if not native.available():
         import pytest

@@ -10,8 +10,8 @@ import sys
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import _kway_merge_u64, build_db, index_db
-from kaamer_tpu.index.artifact import load_db
+from kaamer_jax.index.build import _kway_merge_u64, build_db, index_db
+from kaamer_jax.index.artifact import load_db
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -75,7 +75,7 @@ def test_spill_build_matches_single_chunk(tmp_path, monkeypatch):
 def test_chunked_index_same_results(tmp_path):
     """Range-chunked indexing (set dedup is range-local) must return the
     exact same search results as single-range indexing."""
-    from kaamer_tpu.search.engine import SearchEngine
+    from kaamer_jax.search.engine import SearchEngine
 
     rng = np.random.default_rng(23)
     fasta = str(tmp_path / "in.fasta")
@@ -117,7 +117,7 @@ def test_build_rss_stays_bounded(tmp_path):
         "import sys, resource, json;"
         "sys.path.insert(0, %r);"
         "import numpy as np;"
-        "from kaamer_tpu.index.build import build_db;"
+        "from kaamer_jax.index.build import build_db;"
         "base = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss;"
         "build_db(%r, %r, 'fasta', no_index=True);"
         "peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss;"

@@ -1,6 +1,6 @@
 import numpy as np
 
-from kaamer_tpu.search.orf import get_orfs, get_frame, reverse_complement
+from kaamer_jax.search.orf import get_orfs, get_frame, reverse_complement
 
 # codon map for building test genes (table 11)
 CODON = {
@@ -89,8 +89,8 @@ def test_native_orf_scan_matches_python():
     """The native kt_get_orfs scanner must replicate _get_orfs_py exactly
     (sequences, coordinates, strands, StartsAlternative, ordering)."""
     import numpy as np
-    from kaamer_tpu import native
-    from kaamer_tpu.search.orf import _get_orfs_py, get_orfs_batch
+    from kaamer_jax import native
+    from kaamer_jax.search.orf import _get_orfs_py, get_orfs_batch
 
     if not native.available():
         import pytest

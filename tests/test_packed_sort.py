@@ -8,8 +8,8 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from kaamer_tpu.ops.count import ROW_SENTINEL, count_topk, sort_rle
-from kaamer_tpu.ops.hotset import merge_hot_cold
+from kaamer_jax.ops.count import ROW_SENTINEL, count_topk, sort_rle
+from kaamer_jax.ops.hotset import merge_hot_cold
 
 
 def _mk(rng, B, cap, nrow, L):

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.engine import SearchEngine
-from kaamer_tpu.parallel.mesh import (
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.search.engine import SearchEngine
+from kaamer_jax.parallel.mesh import (
     make_sharded_search,
     replicate_query_batch,
     shard_index,
@@ -69,8 +69,8 @@ def test_sharded_matches_single_chip(db_and_queries):
 
 
 def test_shard_owner_partitions_kmers(db_and_queries):
-    from kaamer_tpu.index.hashtable import occupied_entries
-    from kaamer_tpu.parallel.mesh import shard_owner
+    from kaamer_jax.index.hashtable import occupied_entries
+    from kaamer_jax.parallel.mesh import shard_owner
 
     art, _ = db_and_queries
     kmers, _, _ = occupied_entries(np.asarray(art.hash_table))

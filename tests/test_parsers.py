@@ -3,7 +3,7 @@ import textwrap
 
 import pytest
 
-from kaamer_tpu.io_formats.readers import (
+from kaamer_jax.io_formats.readers import (
     parse_embl,
     parse_fasta,
     parse_gbk,

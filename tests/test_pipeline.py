@@ -7,11 +7,11 @@ import json
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.engine import SearchEngine
-from kaamer_tpu.search.options import NUCLEOTIDE, PROTEIN, SearchOptions
-from kaamer_tpu.search.pipeline import run_search
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.search.engine import SearchEngine
+from kaamer_jax.search.options import NUCLEOTIDE, PROTEIN, SearchOptions
+from kaamer_jax.search.pipeline import run_search
 
 # The published example sequence (docs/client.md:134/165)
 BLAN1 = (

@@ -1,11 +1,11 @@
-from kaamer_tpu.search.results import (
+from kaamer_jax.search.results import (
     Hit,
     QueryResult,
     filter_results,
     format_positions,
 )
-from kaamer_tpu.search.options import SearchOptions
-from kaamer_tpu.io_formats.readers import QueryRecord
+from kaamer_jax.search.options import SearchOptions
+from kaamer_jax.io_formats.readers import QueryRecord
 
 
 def test_format_positions_full_run():

@@ -8,11 +8,11 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import pytest
 
-from kaamer_tpu.index.build import build_db
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.engine import SearchEngine
-from kaamer_tpu.server.app import make_handler
-from kaamer_tpu.server import client as cli_client
+from kaamer_jax.index.build import build_db
+from kaamer_jax.index.artifact import load_db
+from kaamer_jax.search.engine import SearchEngine
+from kaamer_jax.server.app import make_handler
+from kaamer_jax.server import client as cli_client
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -125,7 +125,7 @@ def test_sharded_engine_serves(server, tmp_path):
     import urllib.parse
 
     url, seqs, tmp = server
-    from kaamer_tpu.parallel.dist import ShardedSearchEngine, global_mesh
+    from kaamer_jax.parallel.dist import ShardedSearchEngine, global_mesh
 
     engine = ShardedSearchEngine(load_db(str(tmp / "db")), mesh=global_mesh(4))
     handler = make_handler(engine, str(tmp_path), {})
@@ -152,7 +152,7 @@ def test_shard_built_db_auto_serves_sharded(server, tmp_path):
     import urllib.parse  # noqa: F401
 
     url, seqs, tmp = server
-    from kaamer_tpu.parallel.dist import ShardedSearchEngine, global_mesh
+    from kaamer_jax.parallel.dist import ShardedSearchEngine, global_mesh
 
     dbdir = str(tmp_path / "sdb")
     build_db(dbdir, str(tmp / "db.fasta"), "fasta", n_shards=4)
@@ -189,7 +189,7 @@ def test_missing_type_is_400(server):
 def test_disconnect_poller_detects_eof():
     import socket as sk
 
-    from kaamer_tpu.server.app import _disconnect_poller
+    from kaamer_jax.server.app import _disconnect_poller
 
     a, b = sk.socketpair()
     try:
@@ -207,7 +207,7 @@ def test_mid_search_cancellation_stops_dispatching(server, tmp_path, monkeypatch
     import socket as sk
     import time
 
-    import kaamer_tpu.search.pipeline as pl
+    import kaamer_jax.search.pipeline as pl
 
     url, seqs, tmp = server
     engine = SearchEngine(load_db(str(tmp / "db")))

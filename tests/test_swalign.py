@@ -3,14 +3,14 @@ import math
 import numpy as np
 import pytest
 
-from kaamer_tpu.ops import swalign
-from kaamer_tpu.ops.matrices import (
+from kaamer_jax.ops import swalign
+from kaamer_jax.ops.matrices import (
     ALL_MATRIX_SCORES,
     LETTER_INDEX,
     get_matrix_scores,
     NoMatrixError,
 )
-from kaamer_tpu.records import KStats
+from kaamer_jax.records import KStats
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
